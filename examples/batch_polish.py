@@ -11,7 +11,6 @@ crossover). Run standalone:
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
@@ -19,12 +18,6 @@ import numpy as np
 
 
 def main():
-    import jax
-    try:
-        cpu = jax.local_devices(backend="cpu")[0]
-        jax.config.update("jax_default_device", cpu)
-    except Exception:
-        pass
     from ipx_tpu import Parameters
     from ipx_tpu.parallel.batch import BatchedScenarioSolver
     from ipx_tpu.testgen import transportation

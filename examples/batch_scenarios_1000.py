@@ -13,24 +13,13 @@ finishes it saves (docs/PERFORMANCE.md), and dropping it made this
 example 11.9x faster end to end. Each finished objective is
 cross-checked against an independent direct solve for a sample. Run:
 
-    JAX_PLATFORMS=cpu python examples/batch_scenarios_1000.py
+    python examples/batch_scenarios_1000.py
 
-Measured on the 2-core dev host (CPU backend; the batched phase is the
-TPU-resident part of the design — on the real chip it runs 16.5x the
-host at m=20k/B=256, docs/DEVICE_r05.md):
-
-    1024 scenarios in 24.9s (24 ms/scenario incl. batched phase;
-    round 5 — round 4 with the polish was 296.3s / 289 ms/scenario)
-    statuses: 1024/1024 solved, 1024/1024 optimal verdicts
-    finish IPM iterations: mean 4.11, p90 5, max 7
-    sampled objective check vs direct solves: max rel diff 5.26e-11
+(placement follows JAX_PLATFORMS; JAX_PLATFORMS=cpu runs it on the host).
 """
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_ENABLE_X64", "1")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -38,14 +27,6 @@ import numpy as np  # noqa: E402
 
 
 def main():
-    import jax
-    jax.config.update("jax_enable_x64", True)
-    try:
-        jax.config.update("jax_default_device",
-                          jax.local_devices(backend="cpu")[0])
-    except Exception:
-        pass
-
     from ipx_tpu import LpSolver, Parameters
     from ipx_tpu.parallel.batch import BatchedScenarioSolver
     import ipx_tpu.testgen as tg
@@ -63,10 +44,9 @@ def main():
     b_batch = data["rhs"][None, :] * fac
 
     t0 = time.perf_counter()
-    # A shallow batched sweep: on this 2-core host the batched phase 1 is
-    # compile/width-bound (it is the TPU-resident part of the design), so
-    # the demo runs it to a loose tolerance and lets the warm-started
-    # finishes close the gap. On real accelerators deepen it
+    # A shallow batched sweep: on the CPU backend the batched phase 1 is
+    # compile/width-bound, so the demo runs it to a loose tolerance and
+    # lets the warm-started finishes close the gap. On a GPU deepen it
     # (phase1_tol=1e-4 default) and the finishes become trivial.
     # phase2_polish stays OFF (round-5 default): the shared-basis polish
     # costs more per scenario than the per-lane finishes it would save

@@ -11,7 +11,8 @@ with mesh collectives:
     assembling the full product (ShardedSplittedNNt), with the B/B'
     triangular solves on host.
 
-Run on a machine without k real chips by forcing a virtual CPU mesh:
+On a host with four GPUs it runs as it stands. Without them, force a
+virtual CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_solve.py
@@ -25,14 +26,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 
 def main():
-    import numpy as np
-    import jax
-    try:
-        jax.config.update("jax_default_device",
-                          jax.local_devices(backend="cpu")[0])
-    except Exception:
-        pass
-
     from ipx_tpu import LpSolver, Parameters
     import ipx_tpu.testgen as tg
 

@@ -1,6 +1,6 @@
-"""ipx_tpu — TPU-native interior-point LP solver.
+"""ipx_tpu — interior-point LP solver with a JAX device path for GPUs.
 
-A brand-new JAX/XLA/Pallas implementation with the capabilities of the
+A JAX/XLA implementation with the capabilities of the
 ERGO-Code/ipx reference solver: a primal-dual Mehrotra predictor-corrector
 interior-point method whose Newton/KKT step is solved by preconditioned
 Conjugate Residuals on the normal equations AI*W*AI', with a diagonal
@@ -53,6 +53,7 @@ _tune_malloc()
 
 from .info import Info
 from .lp_solver import LpSolver
+from .ops.backend import DeviceError
 from .parameters import Parameters
 from .status import (Errflag, SolveStatus, Status,
                      IPX_BASIC, IPX_NONBASIC, IPX_NONBASIC_LB,
@@ -62,7 +63,7 @@ from .version import __version__
 
 __all__ = [
     "LpSolver", "Parameters", "Info", "Status", "SolveStatus", "Errflag",
-    "BasicSolution", "InteriorSolution", "__version__",
+    "DeviceError", "BasicSolution", "InteriorSolution", "__version__",
     "IPX_BASIC", "IPX_NONBASIC", "IPX_NONBASIC_LB", "IPX_NONBASIC_UB",
     "IPX_SUPERBASIC",
 ]

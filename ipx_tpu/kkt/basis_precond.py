@@ -24,6 +24,7 @@ from ..basis.maxvolume import Maxvolume
 from ..control import Control
 from ..info import Info
 from ..model import Model
+from ..ops.backend import device_path
 from .base import KKTSolver
 from .cr import ConjugateResiduals
 from .splitted_normal import SplittedNormalMatrix
@@ -165,8 +166,8 @@ class KKTSolverBasis(KKTSolver):
         self._sharded2 = None
         if params.shards is None or params.shards <= 1:
             return
-        try:
-            md = self.model
+        md = self.model
+        with device_path("sharded phase-2 NNt setup"):
             cached = getattr(md, "_sharded_nnt", None)
             if cached is None or cached[0] != params.shards:
                 from ..parallel.sharding import (ShardedSplittedNNt,
@@ -179,34 +180,24 @@ class KKTSolverBasis(KKTSolver):
                                    ShardedPhase2CR(nnt))
                 cached = md._sharded_nnt
             _, nnt, cr = cached
-            if nnt.set_operand(self.splitted.N):
-                self._sharded2 = cr
-            else:
-                self.control.log(
-                    " sharded phase-2 operand overflow; host path\n")
-        except Exception as e:
-            self.control.log(
-                f" sharded phase-2 unavailable ({e}); host path\n")
-            self._sharded2 = None
+            nnt.set_operand(self.splitted.N)
+        self._sharded2 = cr
 
     def _prepare_device(self) -> None:
         """Device phase-2 CR (NN' product jitted on device, host-looped
-        recurrences + B/B' solves, callback-free — ops/device_cr2.py) when
-        Parameters.device requests the accelerator. One compiled program
-        serves all factorizes (padded operands)."""
-        params = self.control.parameters
-        if params.device != "tpu":
+        recurrences + B/B' solves, ops/device_cr2.py) for device="gpu";
+        auto mode keeps phase 2 on the host. One compiled program serves
+        all factorizes (padded operands)."""
+        if self.control.parameters.device != "gpu":
             self._device_cr = None
             return
-        try:
-            if getattr(self, "_device_cr", None) is None:
+        with device_path("device phase-2 CR setup"):
+            # one instance (one compiled program) per model
+            if getattr(self.model, "_device_cr2", None) is None:
                 from ..ops.device_cr2 import DeviceSplittedCR
-                self._device_cr = DeviceSplittedCR(self.model)
+                self.model._device_cr2 = DeviceSplittedCR(self.model)
+            self._device_cr = self.model._device_cr2
             self._device_cr.prepare(self.splitted)
-        except Exception as e:
-            self.control.log(
-                f" device phase-2 CR unavailable ({e}); using host path\n")
-            self._device_cr = None
 
     # ------------------------------------------------------------------
     def _solve(self, a: np.ndarray, b: np.ndarray, tol: float, info: Info,
@@ -265,7 +256,6 @@ class KKTSolverBasis(KKTSolver):
         # the native kernel when available (triangular solves + NN' product
         # + recurrence without Python crossings per iteration).
         self.splitted.reset_time()
-        device_done = False
         if getattr(self, "_device_cr", None) is not None:
             from time import perf_counter
             deadline = 0.0
@@ -275,40 +265,30 @@ class KKTSolverBasis(KKTSolver):
                 remaining = tl - self.control.elapsed()
                 deadline = _t.monotonic() + max(remaining, 0.0)
             t0 = perf_counter()
-            try:
-                warm = (getattr(self, "_epoch_lhs", None)
-                        if getattr(self, "_last_solve_iters", 0) >= 12
-                        else None)
+            warm = (getattr(self, "_epoch_lhs", None)
+                    if getattr(self, "_last_solve_iters", 0) >= 12
+                    else None)
+            with device_path("device phase-2 CR"):
                 lhs, iters, errflag = self._device_cr.solve(
-                    workp, tol, self.maxiter, deadline=deadline,
-                    warm=warm)
-                device_done = True
-            except Exception as e:
-                # e.g. a backend rejecting the jitted SpMV program;
-                # fall through to the host engine
-                self.control.log(
-                    f" device phase-2 CR failed ({e}); using host path\n")
-                self._device_cr = None
-            if device_done:
-                info.errflag = errflag
-                info.kktiter2 += iters
-                info.time_cr2 += perf_counter() - t0
-                info.time_cr2_B += self._device_cr.time_B
-                info.time_cr2_Bt += self._device_cr.time_Bt
-                info.time_cr2_NNt += self._device_cr.time_NNt
-                self._iters += iters
-                self._last_solve_iters = iters
-                if errflag == 0:
-                    self._epoch_lhs = lhs
-        if device_done:
-            pass
+                    workp, tol, self.maxiter, deadline=deadline, warm=warm)
+            info.errflag = errflag
+            info.kktiter2 += iters
+            info.time_cr2 += perf_counter() - t0
+            info.time_cr2_B += self._device_cr.time_B
+            info.time_cr2_Bt += self._device_cr.time_Bt
+            info.time_cr2_NNt += self._device_cr.time_NNt
+            self._iters += iters
+            self._last_solve_iters = iters
+            if errflag == 0:
+                self._epoch_lhs = lhs
         elif getattr(self, "_sharded2", None) is not None:
             from time import perf_counter
             cr = self._sharded2
             cr.time_B = cr.time_Bt = cr.time_NNt = 0.0
             t0 = perf_counter()
-            lhs, iters, errflag = cr.solve(self.splitted, workp, tol,
-                                           self.maxiter)
+            with device_path("sharded phase-2 CR"):
+                lhs, iters, errflag = cr.solve(self.splitted, workp, tol,
+                                               self.maxiter)
             info.errflag = errflag
             info.kktiter2 += iters
             info.time_cr2 += perf_counter() - t0

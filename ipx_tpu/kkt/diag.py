@@ -14,8 +14,9 @@ the KKT-solver contract (reference: src/kkt_solver_diag.cc:67-81).
 For free variables W[j] = 1/regval with regval = min(mu, smallest nonzero g)
 (reference: src/kkt_solver_diag.cc:24-49).
 
-The CR loop runs either on host (numpy) or fully on device as a jitted
-lax.while_loop (see ipx_tpu.ops.device_cr), selected by Parameters.device.
+The CR loop runs either on host (native or numpy) or fully on device as a
+jitted lax.while_loop (see ipx_tpu.ops.device_cr), selected by
+Parameters.device; a device path that fails to build or run raises.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 from ..control import Control
 from ..info import Info
 from ..model import Model
+from ..ops.backend import device_path
 from .base import KKTSolver
 from .cr import ConjugateResiduals
 from .diagonal_precond import DiagonalPrecond
@@ -105,15 +107,9 @@ class KKTSolverDiag(KKTSolver):
         if cached is not None and cached[0] == params.shards:
             self._sharded = cached[1]
             return
-        try:
-            from ..parallel.sharding import ShardedDiagCR
+        from ..parallel.sharding import ShardedDiagCR
+        with device_path("sharded phase-1 CR setup"):
             cr = ShardedDiagCR(self.model.A, int(params.shards))
-        except Exception as e:
-            self.control.log(
-                f" sharded CR unavailable ({e}); using single-device "
-                f"phase-1 solver\n")
-            self.model._sharded_cr = (params.shards, None)
-            return
         self.model._sharded_cr = (params.shards, cr)
         self._sharded = cr
 
@@ -208,39 +204,29 @@ class KKTSolverDiag(KKTSolver):
                     int(lib.ipxlu_nrm_ic_factorize(self._nrm_handle)) == 0)
 
     def _prepare_device(self) -> None:
-        """Set up the on-device CR solver when enabled."""
+        """Set up the on-device CR solver when enabled: always for
+        device="gpu", by DeviceNormalCR.worthwhile in auto mode.
+        precision="mixed" runs the f32 device CR with f64 refinement,
+        "f64" the f64 device CR."""
         self._device_cr = None
         params = self.control.parameters
-        if self._sharded is not None:
-            return      # the mesh CR is the device path
-        if params.device == "cpu":
-            return
-        try:
-            from ..ops.device_cr import DeviceNormalCR, \
-                MixedPrecisionDeviceCR
-        except Exception:
-            return
+        if self._sharded is not None or params.device == "cpu":
+            return      # the mesh CR is the device path when sharded
+        from ..ops.device_cr import DeviceNormalCR, MixedPrecisionDeviceCR
         if params.device == "auto" and not DeviceNormalCR.worthwhile(
                 self.model):
             return
         if self.precond.Adense is not None:
             return      # dense-column SMW precond runs on host for now
-        # mixed precision (f32 device CR + f64 refinement) is the default
-        # device path: the f32 program compiles orders of magnitude faster
-        # on remote-compile backends and runs ~2x faster per matvec
-        try:
-            self._device_cr = MixedPrecisionDeviceCR(
-                self.model, self.W, self.precond.diagonal, self.resscale,
-                host_apply=self.normal_matrix.apply_vec)
-        except Exception:
-            self._device_cr = None
-        if self._device_cr is None:
-            try:
-                self._device_cr = DeviceNormalCR(self.model, self.W,
-                                                 self.precond.diagonal,
-                                                 self.resscale)
-            except Exception:
-                self._device_cr = None
+        with device_path("device phase-1 CR setup"):
+            if params.precision == "f64":
+                self._device_cr = DeviceNormalCR(
+                    self.model, self.W, self.precond.diagonal,
+                    self.resscale)
+            else:
+                self._device_cr = MixedPrecisionDeviceCR(
+                    self.model, self.W, self.precond.diagonal,
+                    self.resscale, host_apply=self.normal_matrix.apply_vec)
 
     def _solve(self, a: np.ndarray, b: np.ndarray, tol: float, info: Info,
                y0: Optional[np.ndarray] = None):
@@ -274,17 +260,19 @@ class KKTSolverDiag(KKTSolver):
             from time import perf_counter
             n_cols = self.model.num_cols
             t0 = perf_counter()
-            y, iters, errflag = self._sharded.solve(
-                self.W[:n_cols], self.W[n_cols:], self.precond.diagonal,
-                self.resscale, rhs, tol, self.maxiter)
+            with device_path("sharded phase-1 CR"):
+                y, iters, errflag = self._sharded.solve(
+                    self.W[:n_cols], self.W[n_cols:], self.precond.diagonal,
+                    self.resscale, rhs, tol, self.maxiter)
             dt = perf_counter() - t0
             info.errflag = errflag
             info.kktiter1 += iters
             info.time_cr1 += dt
             self._iters += iters
         elif self._device_cr is not None:
-            y, iters, errflag, cr_time, mv_time = self._device_cr.solve(
-                rhs, tol, self.maxiter)
+            with device_path("device phase-1 CR"):
+                y, iters, errflag, cr_time, mv_time = self._device_cr.solve(
+                    rhs, tol, self.maxiter)
             info.errflag = errflag
             info.kktiter1 += iters
             info.time_cr1 += cr_time

@@ -19,6 +19,7 @@ from .ipm import IPM
 from .iterate import Iterate
 from .kkt.diag import KKTSolverDiag
 from .model import Model
+from .ops.backend import DeviceError
 from .parameters import Parameters
 from .presolve import Presolver
 from .status import (Errflag, IPX_BASIC, IPX_NONBASIC_LB, IPX_NONBASIC_UB,
@@ -165,9 +166,10 @@ class LpSolver:
         if self.user_model.empty():
             info.status = int(Status.NO_MODEL)
             return info.status
+        where = self._check_device()
         self.control.reset_timer()
         self.control.open_logfile()
-        self.control.log(f"IPX version {__version__} (tpu)\n")
+        self.control.log(f"IPX version {__version__} ({where})\n")
         try:
             self._presolve()
             if info.status == int(Status.NOT_RUN):
@@ -202,6 +204,9 @@ class LpSolver:
                 else:
                     info.status = int(Status.STOPPED)
             self._print_summary()
+        except DeviceError:
+            self.control.close_logfile()
+            raise
         except MemoryError:
             self.control.log(" out of memory\n")
             info.status = int(Status.OUT_OF_MEMORY)
@@ -216,6 +221,21 @@ class LpSolver:
             self.control.debug(self.info.dump(), 2)
         self.control.close_logfile()
         return info.status
+
+    def _check_device(self) -> str:
+        """Validates Parameters.device and returns where the solve runs:
+        "host", or the platform and device_kind of the device that jitted
+        programs use. device="gpu" without a GPU raises DeviceError."""
+        params = self.control.parameters
+        if params.device not in ("auto", "cpu", "gpu"):
+            raise ValueError(f"Parameters.device must be auto, cpu or gpu, "
+                             f"not {params.device!r}")
+        if params.device == "cpu" and not (params.shards or 0) > 1:
+            return "host"
+        from .ops.backend import accelerator, require_accelerator
+        dev = (require_accelerator() if params.device == "gpu"
+               else accelerator())
+        return f"{dev.platform}: {dev.device_kind}"
 
     # ------------------------------------------------------------------
     def get_info(self) -> Info:

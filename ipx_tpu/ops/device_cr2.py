@@ -1,17 +1,13 @@
 """Phase-2 (basis-preconditioned) CR with the N~ N~' product on device.
 
 The splitted-normal operator C = I + inv(B~) N~ N~' inv(B~') (reference:
-src/splitted_normal_matrix.cc:90-117) is hybrid-mapped to the accelerator
-WITHOUT host callbacks (the real TPU attachment rejects jax.pure_callback,
-docs/DEVICE_r03.md — the round-3 design was unusable on the flagship
-hardware):
+src/splitted_normal_matrix.cc:90-117) is split between host and device:
 
   * the N~ N~' product runs as ONE jitted device program per CR iteration
-    (take + segment_sum SpMV formulation, ops/spmv.py);
-  * the CR recurrences and the B / B' triangular solves — inherently
-    sequential, data-dependent sparsity — run on host, exchanging one
-    m-vector with the device per iteration (explicit transfers, no
-    callbacks).
+    (take + segment_sum, ops/spmv.py);
+  * the CR recurrences and the B / B' triangular solves (sequential, with
+    data-dependent sparsity) run on host, exchanging one m-vector with the
+    device per iteration.
 
 Shapes are padded to fixed capacities (nnz(N) <= nnz(A) + m; N always has
 exactly n columns) so ONE compiled program serves every per-IPM-iteration
@@ -24,45 +20,28 @@ from typing import Optional
 
 import numpy as np
 
-from .spmv import LANES, _pad_to
-
-
-def _get_jax():
-    from .device_cr import _get_jax as g
-    return g()
+from .backend import get_jax
+from .spmv import apply_csr, segment_ids
 
 
 class _CapSegOperand:
-    """take+segment_sum operand with fixed capacities: index/value arrays
+    """take+segment_sum operand with a fixed capacity: index/value arrays
     padded with zeros and segment ids padded with num_segments (dropped by
     the segment reduction)."""
 
     def __init__(self, cap_nnz: int, num_segments: int):
-        self.cap = -(-cap_nnz // LANES) * LANES
+        self.cap = cap_nnz
         self.num_segments = num_segments
 
     def pack(self, indptr, indices, data):
-        """CSR-style pack: returns (idx32 (cap,), vals (cap,), seg (cap,))
-        numpy, where seg[k] is the output segment of nonzero k."""
+        """CSR-style pack into the operand pytree of ops.spmv (numpy)."""
         nnz = len(data)
         idx = np.zeros(self.cap, dtype=np.int32)
         idx[:nnz] = indices
         vals = np.zeros(self.cap, dtype=np.float64)
         vals[:nnz] = data
-        nseg = len(indptr) - 1
-        seg = np.full(self.cap, self.num_segments, dtype=np.int32)
-        seg[:nnz] = np.repeat(np.arange(nseg, dtype=np.int32),
-                              np.diff(indptr).astype(np.int64))
-        return idx, vals, seg
-
-
-def _apply_seg(idx, vals, seg, num_segments, u):
-    import jax
-    import jax.numpy as jnp
-    g = jnp.take(u, idx, axis=0, mode="fill", fill_value=0.0)
-    out = jax.ops.segment_sum(vals * g, seg, num_segments=num_segments + 1,
-                              indices_are_sorted=True)
-    return out[:num_segments]
+        return dict(idx=idx, vals=vals,
+                    seg=segment_ids(indptr, self.cap, self.num_segments))
 
 
 class DeviceSplittedCR:
@@ -70,13 +49,12 @@ class DeviceSplittedCR:
 
     One instance per KKT solver; prepare() is called per factorize with the
     current SplittedNormalMatrix (its N, uscale, free positions). solve()
-    runs the CR loop on host with one device NN' apply per iteration —
-    callback-free, so it executes on attachments that reject host
-    callbacks.
+    runs the CR loop on host with one device NN' apply per iteration.
+    `applies` counts the device NN' products.
     """
 
     def __init__(self, model):
-        jax = _get_jax()
+        jax = get_jax()
         self.jax = jax
         md = model
         self.m = md.num_rows
@@ -90,6 +68,7 @@ class DeviceSplittedCR:
         self.time_B = 0.0
         self.time_Bt = 0.0
         self.time_NNt = 0.0
+        self.applies = 0
 
     def prepare(self, splitted) -> None:
         """Refreshes the device operands from a prepared
@@ -97,13 +76,12 @@ class DeviceSplittedCR:
         N = splitted.N.tocsc()
         N_csr = N.tocsr()
         self._basis = splitted._basis
-        jnp = self.jax.numpy
+        put = self.jax.device_put
         # N' w: one value per nnz, segment = column (CSC order is
         # column-sorted); N u: segment = row (CSR order)
-        i, v, s = self._opNt.pack(N.indptr, N.indices, N.data)
-        self._nt_args = tuple(map(jnp.asarray, (i, v, s)))
-        i, v, s = self._opN.pack(N_csr.indptr, N_csr.indices, N_csr.data)
-        self._n_args = tuple(map(jnp.asarray, (i, v, s)))
+        self._nt_args = put(self._opNt.pack(N.indptr, N.indices, N.data))
+        self._n_args = put(self._opN.pack(N_csr.indptr, N_csr.indices,
+                                          N_csr.data))
         self._uscale = np.asarray(splitted.uscale)
         self._freepos = np.asarray(splitted.free_positions)
         if self._fn is None:
@@ -114,8 +92,8 @@ class DeviceSplittedCR:
         opN, opNt = self._opN, self._opNt
 
         def nnt(nt_args, n_args, w):
-            u = _apply_seg(*nt_args, opNt.num_segments, w)   # N' w
-            return _apply_seg(*n_args, opN.num_segments, u)  # N (N' w)
+            u = apply_csr(nt_args, opNt.num_segments, w)     # N' w
+            return apply_csr(n_args, opN.num_segments, u)    # N (N' w)
 
         self._fn = jax.jit(nnt)
 
@@ -130,6 +108,7 @@ class DeviceSplittedCR:
         z = self._fn(self._nt_args, self._n_args,
                      self.jax.numpy.asarray(w))
         z = np.asarray(z)
+        self.applies += 1
         self.time_NNt += perf_counter() - t0
         t0 = perf_counter()
         y = self._basis.solve_dense(z, "N")

@@ -2,8 +2,8 @@
 
 Field names, defaults and semantics are API-parity with the reference
 parameter struct (reference: include/ipx_parameters.h:6-85, documented in
-doc/reference.tex:368-546). Extra TPU-specific knobs are grouped at the end
-and default to safe values; they have no counterpart in the reference.
+doc/reference.tex:368-546). Extra device knobs are grouped at the end and
+default to safe values; they have no counterpart in the reference.
 """
 from __future__ import annotations
 
@@ -58,8 +58,13 @@ class Parameters:
     update_heuristic: int = 1
     maxpasses: int = -1
 
-    # --- TPU-specific (no counterpart in the reference) ---
-    device: str = "auto"            # "auto" | "cpu" | "tpu": where CR/SpMV run
+    # --- Device (no counterpart in the reference) ---
+    device: str = "auto"            # "auto" | "cpu" | "gpu": where CR/SpMV
+                                    # run. "gpu" runs both IPM phases' CR
+                                    # products on the GPU and raises when
+                                    # there is none; "auto" runs phase 1 on
+                                    # a GPU for large models, phase 2 on
+                                    # the host
     precision: str = "mixed"        # KKT-solve arithmetic: "mixed" runs the
                                     # CR inner loop in f32 with f64 defect
                                     # correction (same termination contract,
@@ -74,8 +79,9 @@ class Parameters:
     shards: int = 0                 # >1: partition AI's rows into this many
                                     # blocks over a jax.sharding mesh and run
                                     # the phase-1 CR as collective SpMVs so
-                                    # one LP spans multiple chips; needs
-                                    # >= shards visible devices
+                                    # one LP spans several devices; needs
+                                    # >= shards devices on the default
+                                    # backend
 
     # --- Checkpoint/resume (no counterpart in the reference) ---
     checkpoint_file: Optional[str] = None  # write .npz checkpoints here

@@ -152,3 +152,18 @@ def test_batched_1024_scenarios_with_polish():
         assert s_ref.solve() == 1000
         ref = s_ref.get_info().pobjval
         assert abs(info.pobjval - ref) <= 1e-6 * max(1.0, abs(ref)), int(k)
+
+
+def test_batched_f32_cr_matches_f64():
+    """The accelerator default cr_dtype="f32" (f32 CR chunks inside f64
+    defect correction) converges on the CPU backend too and reaches the
+    f64 objectives."""
+    a, blp = make_batch(B=4, seed=2)
+    out = {}
+    for dt in ("f32", "f64"):
+        solver = BatchedPhase1Solver(blp, maxiter=60, cr_dtype=dt)
+        assert solver.cr_dtype == dt
+        out[dt] = solver.solve()
+        assert np.all(out[dt]["done"]), dt
+    np.testing.assert_allclose(out["f32"]["pobj"], out["f64"]["pobj"],
+                               rtol=1e-6)

@@ -20,12 +20,12 @@ def _solve(device, a):
     return s.get_info()
 
 
-def test_device_cr_matches_host():
+def test_device_cr_matches_host(cpu_as_gpu):
     a = random_lp(60, 80, density=0.2, seed=3)
-    # force the device path regardless of size by setting device="tpu"
-    # (runs on the CPU backend under tests/conftest.py)
+    # force the device path regardless of size by setting device="gpu"
+    # (runs on the CPU backend through the cpu_as_gpu fixture)
     info_host = _solve("cpu", a)
-    info_dev = _solve("tpu", a)
+    info_dev = _solve("gpu", a)
     assert info_dev.status == info_host.status
     assert info_dev.objval == pytest.approx(info_host.objval, rel=1e-8)
     assert info_dev.primal_infeas <= 1e-7
@@ -103,12 +103,12 @@ def test_mixed_precision_cr_reaches_f64_tolerance():
     assert iters > 0
 
 
-def test_mixed_precision_cr_in_full_solve():
-    """device='tpu' (CPU backend under conftest) routes phase 1 through the
-    mixed-precision solver and still reaches the default tolerances."""
+def test_mixed_precision_cr_in_full_solve(cpu_as_gpu):
+    """device='gpu' (CPU backend through cpu_as_gpu) routes phase 1 through
+    the mixed-precision solver and still reaches the default tolerances."""
     a = random_lp(80, 120, density=0.15, seed=9)
     info_host = _solve("cpu", a)
-    info_dev = _solve("tpu", a)
+    info_dev = _solve("gpu", a)
     assert info_dev.status == info_host.status
     assert info_dev.objval == pytest.approx(info_host.objval, rel=1e-8)
 
